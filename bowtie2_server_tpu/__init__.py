@@ -1,13 +1,14 @@
-"""bowtie2_server_tpu — a TPU-native short-read aligner with Bowtie 2's capabilities.
+"""bowtie2_server_tpu — a batched, accelerator-resident short-read aligner
+with Bowtie 2's capabilities.
 
 A from-scratch reimplementation of the capabilities of sfiligoi/bowtie2-server
-(Bowtie 2 + client/server mode) designed TPU-first:
+(Bowtie 2 + client/server mode) whose search runs as batched device programs:
 
-- The two regular compute cores run on TPU via JAX/XLA/Pallas:
+- The two regular compute cores run on the device as JAX/XLA programs:
   (1) batched FM-index ops (LF-mapping = gathers + in-block counts over a
       checkpointed occ table), replacing the scalar prefetch-tuned loops of
       the reference (ref: bt2_idx.h:1758 countBt2Side, aligner_seed.cpp:854);
-  (2) batched banded affine-gap Smith-Waterman (Pallas kernel), replacing the
+  (2) batched banded affine-gap Smith-Waterman (an XLA scan), replacing the
       SSE striped kernels (ref: aligner_swsse_{ee,loc}_{u8,i16}.cpp).
 - SA resolution is a single device gather over a full suffix array kept in
   HBM, replacing the sampled-SA group-walk (ref: group_walk.h) — HBM capacity

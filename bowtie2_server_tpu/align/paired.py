@@ -169,11 +169,12 @@ class PairedRecs:
 
 class PairedAligner:
     def __init__(self, index, scoring=None, policy: SearchPolicy | None = None,
-                 pe: PairedPolicy | None = None, engine: str = "auto",
+                 pe: PairedPolicy | None = None, engine: str = "xla",
                  no_mixed: bool = False, no_discordant: bool = False,
-                 sc_unmapped_tlen: bool = False):
+                 sc_unmapped_tlen: bool = False, mesh=None, device=None):
+        """mesh/device: where the unpaired aligner runs (UnpairedAligner)."""
         self.up = UnpairedAligner(index, scoring=scoring, policy=policy,
-                                  engine=engine)
+                                  engine=engine, mesh=mesh, device=device)
         self.pe = pe or PairedPolicy()
         self.no_mixed = no_mixed        # ref: --no-mixed (gMixedMode off)
         self.no_discordant = no_discordant  # ref: --no-discordant
@@ -624,7 +625,7 @@ class PairedAligner:
                     + _dna.decode(ref_m[ci2, : int(wlens[ci2])]) + "\n")
         best, bi, bj = sw_align_batch(
             rd_m, np.maximum(clens, 1), mm_m, ref_m, wlens, up.sw_cfg,
-            engine=up.engine)
+            device=up.device)
         for ci, meta in enumerate(metas):
             if meta is None:
                 continue

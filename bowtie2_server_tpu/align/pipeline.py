@@ -489,10 +489,17 @@ def revcomp_batch(seqs, quals, lens):
 
 class UnpairedAligner:
     def __init__(self, index: FmIndex, scoring: Scoring | None = None,
-                 policy: SearchPolicy | None = None, engine: str = "auto",
+                 policy: SearchPolicy | None = None, engine: str = "xla",
                  nofw: bool = False, norc: bool = False, mesh=None,
-                 force_big: bool | None = None):
-        """force_big=True runs the big-index (uint32-row, sampled-SA) device
+                 device=None, force_big: bool | None = None):
+        """engine: the fused program's banded DP — 'xla', or a debug engine
+        of scripts/profile_cuts.py ('nodp', 'cut_*').
+        mesh: a `jax.sharding.Mesh` with a 'dp' axis — each batch's reads
+        shard over it and the index is placed on it once, replicated.
+        device: the one device this aligner runs on (a worker of a
+        multi-device server); None with no mesh = JAX's default device.
+
+        force_big=True runs the big-index (uint32-row, sampled-SA) device
         path even on a small genome — the big path's correctness oracle is
         the small path on the same index (tests/test_big_index.py). By
         default, genomes past dfm.BIG_THRESHOLD (~2.1 Gbp) switch
@@ -507,8 +514,17 @@ class UnpairedAligner:
         self.big = (index.n + 1 >= dfm.BIG_THRESHOLD if force_big is None
                     else bool(force_big))
         self.band = band_for(self.pol.maxhalf)
-        self.dev = dfm.to_device(index.fw, big=self.big)
-        self.dev_mirror = (dfm.to_device(index.mirror, big=self.big)
+        # where the index lives: replicated over the mesh, or on the device
+        if mesh is not None:
+            from jax.sharding import NamedSharding, PartitionSpec
+            placement = NamedSharding(mesh, PartitionSpec())
+        else:
+            placement = device
+        # device of the standalone DP calls (host paths, mate rescue)
+        self.device = device
+        self.dev = dfm.to_device(index.fw, placement, big=self.big)
+        self.dev_mirror = (dfm.to_device(index.mirror, placement,
+                                         big=self.big)
                           if index.mirror is not None else None)
         # run boundaries in joined space for window clipping
         self._run_starts = index.run_joined_start
@@ -525,6 +541,10 @@ class UnpairedAligner:
         # the host traceback passes — attempts, rejects, commits, and path
         # cells walked)
         self.bt_ctr = {"bt": 0, "btfail": 0, "btsucc": 0, "btcell": 0}
+        # batches by device path: the fused program ("fused"), re-runs at a
+        # larger capacity after an overflow ("escalated"), and the general
+        # host path ("host"); the CLI reports them on stderr
+        self.path_ctr = {"fused": 0, "escalated": 0, "host": 0}
         # per-read-length gap-budget cache for tallyGappedDp (see collect)
         self._gapclass_cache: dict[int, int] = {}
         self.want_met = False   # --met consumer attached: collect the
@@ -534,14 +554,10 @@ class UnpairedAligner:
         # fused device pipeline (align/candgen.py) — the fast path
         self.candgen = None
         if self.dev_mirror is not None:
-            import jax as _jax
             from .candgen import CandGen
-            eng = self.engine
-            if eng == "auto":
-                eng = ("pallas" if _jax.default_backend() == "tpu"
-                       else "xla")
             self.candgen = CandGen(self.dev, self.dev_mirror, index,
-                                   self.pol, self.sw_cfg, eng, self.band,
+                                   self.pol, self.sw_cfg, self.engine,
+                                   self.band, device=placement,
                                    mesh=mesh)
 
     # ---- seed schedule (ref: bt2_search.cpp:3848-3870, aligner_seed.cpp:498)
@@ -678,8 +694,10 @@ class UnpairedAligner:
     def collect_wait(self, handle):
         if handle[0] == "host":
             _, batch, boost, seed_skip = handle
+            self.path_ctr["host"] += 1
             return self._collect_host(batch, boost, seed_skip)
         _, batch, boost, seed_skip, h, meta = handle
+        self.path_ctr["fused"] += 1
         import time as _time
         _tf = _time.time()
         res = self.candgen.fetch(h)
@@ -712,6 +730,7 @@ class UnpairedAligner:
                 return r
 
             for mult in ((2, 4, 16) if self.big else (2, 4)):
+                self.path_ctr["escalated"] += 1
                 res = redispatch(mult)
                 if not res.overflow:
                     break
@@ -721,6 +740,7 @@ class UnpairedAligner:
                     # batch in half and retries (BigCapacityError)
                     raise BigCapacityError(
                         "big-index candidate capacity exceeded at 16x")
+                self.path_ctr["host"] += 1
                 return self._collect_host(batch, boost, seed_skip)
         st = self._build_state(batch, res, meta)
         if self.dp_log is not None:
@@ -935,7 +955,7 @@ class UnpairedAligner:
         else:
             r_best, r_bi, r_bj = sw_align_batch(
                 rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
-                engine=self.engine)
+                device=self.device)
         for ri_, (ci, rid, wl, wr) in enumerate(jobs):
             st.best[ci] = int(r_best[ri_])
             st.end_joined[ci] = wl + int(r_bj[ri_])
@@ -1443,7 +1463,7 @@ class UnpairedAligner:
                 band_m[bi_, : rl + K] = joined[ws : ws + rl + K]
             b_best, b_bi, b_bk = sw_banded_batch(
                 rd_m, clens, mm_m, band_m, self.sw_cfg, K=K,
-                engine=self.engine)
+                device=self.device)
             for bi_, ci in enumerate(band_ids):
                 i, is_fw, diag = cands[ci]
                 ws = diag - c_half
@@ -1456,7 +1476,7 @@ class UnpairedAligner:
             nr = len(rect_ids)
             lq = max(int(lens[cands[ci][0]]) for ci in rect_ids)
             wmax = max(wr - wl for _, wl, wr in rect_geom)
-            # bucket shapes (bounded compile count on TPU)
+            # bucket shapes (bounded compile count)
             lq = -(-lq // 64) * 64
             wmax = -(-wmax // 128) * 128
             rd_m = np.full((nr, lq), 5, np.uint8)
@@ -1475,7 +1495,7 @@ class UnpairedAligner:
                 wlens[ri] = wr - wl
             r_best, r_bi, r_bj = sw_align_batch(
                 rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
-                engine=self.engine)
+                device=self.device)
             for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
                                                          rect_geom)):
                 best[ci] = int(r_best[ri])

@@ -1,10 +1,8 @@
-"""Seed-length k-mer position table — the TPU-first replacement for the
+"""Seed-length k-mer position table — the device replacement for the
 seed-round FM searches (ref: aligner_seed.cpp:668 searchSeedBi with -N 0).
 
-An exact-seed FM search costs seed_len LF steps x 2 occ gathers each; on
-this hardware gathers are the bottleneck (the whole fused batch is
-gather-latency-bound, ~0.5 ms per chained step at 16k lanes). A sorted
-k-mer table answers the same query — "all genome positions where this
+An exact-seed FM search costs seed_len chained LF steps x 2 occ gathers
+each. A sorted k-mer table answers the same query — "all genome positions where this
 seed_len-mer occurs" — in ceil(log2(max_bucket)) single-row gathers:
 
   key(pos)  = the seed_len bases at joined[pos:pos+seed_len], packed 2-bit
@@ -131,8 +129,7 @@ def to_device(tab: KmerTable, device=None) -> DeviceKmer:
 # ------------------------------------------------------------ cuckoo table -
 #
 # The sorted-table binary search costs 2 + 2*steps gathered rows per query
-# lane (bucket bounds + a chained lower/upper-bound loop). On this backend
-# gathers dominate the whole seed stage (~50 ns/row), so the hot-path
+# lane (bucket bounds + a chained lower/upper-bound loop), so the hot-path
 # replacement is a bucketized two-choice hash table: every unique seed key
 # lives in one of TWO buckets of TWO 16-byte slots each, and a lookup is
 # exactly 2 INDEPENDENT 32-byte row gathers + VPU compares — no chained

@@ -178,8 +178,8 @@ class PerfMetrics:
     """The reference's --metrics TSV (ref: bt2_search.cpp:1923
     PerfMetrics): same 129-column header and cadence.
 
-    Column mapping for the TPU design: all DP runs in ONE precision class
-    (int32 banded Pallas / rect numpy), reported under the DP16Ex*/
+    Column mapping for this design: all DP runs in ONE precision class
+    (int32 banded XLA scan / rect numpy), reported under the DP16Ex*/
     DP16Mate* family; DP8* stays 0 (no 8-bit class exists). DpSat stays 0
     (int32 cannot saturate). The cache columns (IntraSCacheHit/
     InterSCacheHit) stay 0 by design: batch dedup replaces the seed-hit

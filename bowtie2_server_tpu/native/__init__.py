@@ -20,7 +20,7 @@ _TRIED = False
 
 
 def _build() -> Path | None:
-    so = _HERE / "libbt2tpu.so"
+    so = _HERE / "libbt2native.so"
     srcs = sorted(_HERE.glob("*.cpp"))
     if not srcs:
         return None
@@ -32,7 +32,7 @@ def _build() -> Path | None:
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except Exception as e:  # no toolchain / failed build -> python fallback
-        print(f"bt2tpu: native build unavailable ({e}); using python "
+        print(f"native build unavailable ({e}); using python "
               f"fallbacks", file=sys.stderr)
         return None
     return so
@@ -46,21 +46,21 @@ def get_lib():
         if so is not None:
             lib = ctypes.CDLL(str(so))
             u8p = ctypes.POINTER(ctypes.c_uint8)
-            lib.bt2tpu_sais.restype = ctypes.c_int
-            lib.bt2tpu_sais.argtypes = [
+            lib.bt2n_sais.restype = ctypes.c_int
+            lib.bt2n_sais.argtypes = [
                 u8p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)]
-            lib.bt2tpu_sais64.restype = ctypes.c_int
-            lib.bt2tpu_sais64.argtypes = [
+            lib.bt2n_sais64.restype = ctypes.c_int
+            lib.bt2n_sais64.argtypes = [
                 u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
-            lib.bt2tpu_sa_from_bwt.restype = ctypes.c_int
-            lib.bt2tpu_sa_from_bwt.argtypes = [
+            lib.bt2n_sa_from_bwt.restype = ctypes.c_int
+            lib.bt2n_sa_from_bwt.argtypes = [
                 u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_int64)]
             i32p = ctypes.POINTER(ctypes.c_int32)
             i64p = ctypes.POINTER(ctypes.c_int64)
             cp = ctypes.c_char_p
-            lib.bt2tpu_sam_format.restype = ctypes.c_int64
-            lib.bt2tpu_sam_format.argtypes = [
+            lib.bt2n_sam_format.restype = ctypes.c_int64
+            lib.bt2n_sam_format.argtypes = [
                 i32p, i64p, u8p, u8p,                 # tidx,pysrc,filt,yf2
                 cp, i64p, cp, i64p, cp, i64p,         # name/seq/qual blobs
                 u8p, i32p, i64p, i64p, u8p, i64p,     # fw,refid,pos,score,
@@ -160,7 +160,7 @@ def sam_format_batch(recs, ref_names, rg_id=None, no_unal=False):
 
     for _ in range(3):
         out = ctypes.create_string_buffer(int(cap))
-        ret = lib.bt2tpu_sam_format(
+        ret = lib.bt2n_sam_format(
             p32(tidx), p64(pysrc), pu8(filt), pu8(yf2),
             name_blob, p64(name_off), seq_blob, p64(seq_off),
             qual_blob, p64(qual_off),
@@ -187,12 +187,12 @@ def sais(text: np.ndarray, force64: bool = False) -> np.ndarray | None:
     text = np.ascontiguousarray(text, dtype=np.uint8)
     if n >= (1 << 31) or force64:
         sa = np.empty(n, dtype=np.int64)
-        rc = lib.bt2tpu_sais64(
+        rc = lib.bt2n_sais64(
             text.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             np.int64(n), sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
         return sa if rc == 0 else None
     sa = np.empty(n, dtype=np.int32)
-    rc = lib.bt2tpu_sais(
+    rc = lib.bt2n_sais(
         text.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         np.int32(n), sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     if rc != 0:
@@ -213,7 +213,7 @@ def sa_from_bwt(bwt: np.ndarray, primary: int,
         return None
     bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
     sa = np.empty(len(bwt), dtype=np.int64)
-    rc = lib.bt2tpu_sa_from_bwt(
+    rc = lib.bt2n_sa_from_bwt(
         bwt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         np.int64(len(bwt)), np.int64(primary), np.int32(dollar_large),
         sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))

@@ -11,7 +11,7 @@
 // suffix starts at n-k.
 //
 // Exposed C ABI:
-//   int bt2tpu_sa_from_bwt(const uint8_t* bwt, int64_t n_rows,
+//   int bt2n_sa_from_bwt(const uint8_t* bwt, int64_t n_rows,
 //                          int64_t primary, int32_t dollar_large,
 //                          int64_t* sa_out)
 //     bwt: n_rows = n_text+1 codes (values 0..3; the entry at row
@@ -92,7 +92,7 @@ struct Rank2Bit {
 
 extern "C" {
 
-int bt2tpu_sa_from_bwt(const uint8_t* bwt, int64_t n_rows, int64_t primary,
+int bt2n_sa_from_bwt(const uint8_t* bwt, int64_t n_rows, int64_t primary,
                        int32_t dollar_large, int64_t* sa_out) {
     if (n_rows <= 0) return 1;
     int64_t n_text = n_rows - 1;

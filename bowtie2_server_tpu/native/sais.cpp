@@ -9,8 +9,8 @@
 // recursion level, and the two induce passes run over raw pointers.
 //
 // Exposed C ABI:
-//   int bt2tpu_sais(const uint8_t* text, int32_t n, int32_t* sa)
-//   int bt2tpu_sais64(const uint8_t* text, int64_t n, int64_t* sa)
+//   int bt2n_sais(const uint8_t* text, int32_t n, int32_t* sa)
+//   int bt2n_sais64(const uint8_t* text, int64_t n, int64_t* sa)
 //     -> 0 on success; sa[0..n) = suffix array of text (alphabet 0..255,
 //        suffixes compared with implicit terminator < all characters).
 #include <cstdint>
@@ -142,11 +142,11 @@ int sais_entry(const uint8_t* text, TIdx n, TIdx* sa) {
 
 extern "C" {
 
-int bt2tpu_sais(const uint8_t* text, int32_t n, int32_t* sa) {
+int bt2n_sais(const uint8_t* text, int32_t n, int32_t* sa) {
     return sais_entry<int32_t>(text, n, sa);
 }
 
-int bt2tpu_sais64(const uint8_t* text, int64_t n, int64_t* sa) {
+int bt2n_sais64(const uint8_t* text, int64_t n, int64_t* sa) {
     return sais_entry<int64_t>(text, n, sa);
 }
 

@@ -47,7 +47,7 @@ const CompTab COMP;
 
 }  // namespace
 
-extern "C" int64_t bt2tpu_sam_format(
+extern "C" int64_t bt2n_sam_format(
     // per-read, length B
     const int32_t *tidx,        // index into SoA columns; -1 = not filled
     const int64_t *pysrc,       // >=0: [py_off[i], py_off[i]+len) splice

@@ -1,13 +1,13 @@
-"""Multi-chip scaling (ref: §2.3 of the survey — the reference's only
-parallel axis is read-level data parallelism over threads; the TPU-native
-equivalent is read-sharded SPMD over a device mesh with a replicated index).
+"""Multi-device scaling (ref: §2.3 of the survey — the reference's only
+parallel axis is read-level data parallelism over threads; here it is
+read-sharded SPMD over a 1-D 'dp' device mesh with a replicated index).
 
 `device_align_step` is the fused, fully-jittable device step: exact FM
 backward search -> first-hit SA resolve -> banded DP score of the implied
 diagonal. It is the unit that shards: reads split along the `dp` mesh axis,
-the FM index + reference replicated (they fit in HBM for bacterial/fungal
-genomes; sharded-index mode with ICI all-gathers is the >HBM design), and a
-`psum` merges per-shard aligned counts — the collective rides ICI.
+the FM index + reference replicated (they fit in one device's memory for
+bacterial/fungal genomes), and a reduction merges per-shard aligned
+counts.
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ def make_sharded_step(mesh: Mesh, cfg: SwConfig, K: int):
     def step(fm, joined, reads, lens, mmpen, minsc):
         best, offs = device_align_step(cfg, K, fm, joined, reads, lens, mmpen)
         n_aligned = jnp.sum((best >= minsc).astype(jnp.int32))
-        # psum over the dp axis via a reduction the partitioner lowers to an
-        # ICI all-reduce when inputs are dp-sharded
+        # a reduction over dp-sharded inputs: the partitioner lowers it to
+        # an all-reduce over the mesh
         return best, offs, n_aligned
 
     repl = NamedSharding(mesh, P())

@@ -29,7 +29,7 @@ from __future__ import annotations
 import asyncio
 
 from ..align.paired import PairedAligner
-from ..align.pipeline import SearchPolicy, UnpairedAligner
+from ..align.pipeline import SearchPolicy
 from ..index.fm import FmIndex
 from ..io.fastq import make_batch
 from ..io.sam import sam_record
@@ -42,7 +42,7 @@ FLUSH_READS = 4096  # must stay < the client's 20k in-flight slot cap
 class Bt2Server:
     def __init__(self, index_base: str, index_name: str | None = None,
                  local: bool = False, preset: str | None = None,
-                 batch_size: int = FLUSH_READS, engine: str = "auto",
+                 batch_size: int = FLUSH_READS, engine: str = "xla",
                  n_workers: int = 1, remote_workers: list[str] | None = None):
         """remote_workers: "host:port" addresses of backend BT2SRV servers
         (one per remote host over DCN); packs relay to them over the same
@@ -61,15 +61,14 @@ class Bt2Server:
         # one aligner pair per device group; packs dispatch round-robin
         # across connections onto the groups (ref: the shared worker pool
         # over per-connection queues, pat.cpp:2016-2086; SURVEY §2.3 row 3)
-        groups = make_device_groups(n_workers)
+        from jax.sharding import Mesh
         workers = []
-        for mesh in groups:
-            up = UnpairedAligner(self.idx, scoring=sc, policy=self.pol,
-                                 engine=engine, mesh=mesh)
+        for group in make_device_groups(n_workers):
+            mesh = group if isinstance(group, Mesh) else None
             pal = PairedAligner(self.idx, scoring=sc, policy=self.pol,
-                                engine=engine)
-            pal.up = up  # share device state within the group
-            workers.append((up, pal))
+                                engine=engine, mesh=mesh,
+                                device=None if mesh else group)
+            workers.append((pal.up, pal))
         self.up, self.pal = workers[0]
         for addr in remote_workers or []:
             host, _, port = addr.rpartition(":")

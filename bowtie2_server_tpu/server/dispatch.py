@@ -3,10 +3,10 @@ pat.cpp:2016-2086 — per-connection `psq_idle` queues feeding the shared
 `psq_ready_` pool consumed by all worker threads; SURVEY §2.3 row 3 maps
 that scale-out axis to dispatching read packs across device groups).
 
-Architecture: N workers, each owning one DEVICE GROUP — a
-`jax.sharding.Mesh` over a disjoint subset of local devices (one chip, a
-host's chips, or a multi-host slice section; the index is replicated per
-group, packs are data-parallel within a group via shard_map). Packs are
+Architecture: N workers, each owning one DEVICE GROUP — one device, or a
+`jax.sharding.Mesh` over a disjoint subset of local devices (the index is
+replicated per group, packs are data-parallel within a group via
+shard_map). Packs are
 taken round-robin ACROSS CONNECTIONS — one pack per connection per turn —
 so a connection streaming millions of reads cannot starve a small one
 (the reference gets the same property from its per-connection idle
@@ -104,27 +104,26 @@ class AlignDispatcher:
 
 
 def make_device_groups(n_workers: int):
-    """Partition local devices into n_workers disjoint mesh groups
-    (ref: SURVEY §2.3 row 3 — per-host/per-group read shards). Returns a
-    list of `jax.sharding.Mesh | None` (None = single device, no mesh)."""
+    """Partition local devices into n_workers disjoint groups (ref: SURVEY
+    §2.3 row 3 — per-host/per-group read shards). Returns one entry per
+    worker: a `jax.sharding.Mesh` with a 'dp' axis over a group of several
+    devices, the `Device` itself for a one-device group, or None (JAX's
+    default device) for one worker on a one-device host."""
     import jax
+    import numpy as np
     from jax.sharding import Mesh
 
     devs = jax.devices()
     if n_workers <= 1:
-        if len(devs) > 1:
-            import numpy as np
-            return [Mesh(np.array(devs), ("dp",))]
-        return [None]
+        return [Mesh(np.array(devs), ("dp",)) if len(devs) > 1 else None]
     if len(devs) < n_workers:
         raise ValueError(
             f"{n_workers} workers need >= {n_workers} devices "
             f"(have {len(devs)})")
     per = len(devs) // n_workers
-    import numpy as np
     groups = []
     for k in range(n_workers):
         sub = devs[k * per : (k + 1) * per]
         groups.append(Mesh(np.array(sub), ("dp",)) if len(sub) > 1
-                      else None)
+                      else sub[0])
     return groups

@@ -87,10 +87,8 @@ def main():
     import jax
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    cache = Path("tmp/jax_cache")
-    cache.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bowtie2_server_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     idx = build_or_load()
     from bowtie2_server_tpu.align.pipeline import UnpairedAligner

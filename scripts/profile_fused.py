@@ -1,4 +1,4 @@
-"""Stage-level timing of the fused pipeline on the real chip.
+"""Stage-level timing of the fused pipeline on the device.
 
 Times: (a) full dispatch+device, (b) device with engine='nodp' (no DP),
 (c) host decode/finish, at a few batch sizes.
@@ -13,10 +13,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
 
-cache = Path("tmp/jax_cache")
-cache.mkdir(parents=True, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", str(cache))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bowtie2_server_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 from bench import make_workload
 from bowtie2_server_tpu.align.pipeline import UnpairedAligner
@@ -24,7 +23,7 @@ from bowtie2_server_tpu.index.fm import FmIndex
 from bowtie2_server_tpu.io.fastq import make_batch
 
 tmp = Path("tmp")
-fa, names, seqs, quals = make_workload(tmp)
+fa, names, seqs, quals, _, _ = make_workload(tmp)
 idx = FmIndex.load(tmp / "bench_genome_idx")
 
 import os

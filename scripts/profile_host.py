@@ -9,9 +9,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
 
-cache = Path("tmp/jax_cache")
-jax.config.update("jax_compilation_cache_dir", str(cache))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bowtie2_server_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 from bench import make_workload
 from bowtie2_server_tpu.align.pipeline import UnpairedAligner
@@ -19,7 +19,7 @@ from bowtie2_server_tpu.index.fm import FmIndex
 from bowtie2_server_tpu.io.fastq import make_batch
 
 tmp = Path("tmp")
-fa, names, seqs, quals = make_workload(tmp)
+fa, names, seqs, quals, _, _ = make_workload(tmp)
 idx = FmIndex.load(tmp / "bench_genome_idx")
 BATCH = 32768
 al = UnpairedAligner(idx)

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-cache = Path("tmp/jax_cache")
-jax.config.update("jax_compilation_cache_dir", str(cache))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bowtie2_server_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 B, L, S, R, E = 8192, 128, 8, 2, 16
 NH, C_pre, C_max = 8 * B, 16 * B, 4 * B
